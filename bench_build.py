@@ -31,6 +31,9 @@ VOCAB = 30_000
 
 
 def main():
+    from iresearch_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from iresearch_tpu.index.writer import Field, IndexWriter, IndexWriterOptions
     from iresearch_tpu.store.directory import MemoryDirectory
     from iresearch_tpu.index.reader import DirectoryReader

@@ -1,7 +1,7 @@
 """Microbenchmarks (reference analog: microbench/ google-benchmark suite —
 column writer, crc, hash map, segmentation stream, simd utils).
 
-Run: python bench_micro.py  (uses the real TPU for device ops; prints a
+Run: python bench_micro.py  (uses the accelerator for device ops; prints a
 table to stdout, no driver contract).
 """
 
@@ -22,6 +22,9 @@ def timeit(fn, n=20, warmup=2):
 
 
 def main():
+    from iresearch_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     rng = np.random.default_rng(0)
     rows = []
 

@@ -1,8 +1,8 @@
-"""iresearch_tpu — a TPU-native full-text search engine.
+"""iresearch_tpu — an accelerator-native full-text search engine.
 
 A from-scratch rebuild of the capabilities of IResearch (the C++ Lucene-like
 library behind ArangoSearch; reference layout: ``core/{store,formats,analysis,
-index,search}``) designed for TPU hardware:
+index,search}``) designed for accelerator hardware:
 
 * Postings live in HBM as width-classed ``[rows, 128]`` block pools; decode is
   a vectorized gather + per-block prefix-sum (VPU work), not pointer chasing.

@@ -5,7 +5,7 @@ Reference: core/analysis/ — 13 registered analyzers configured from JSON
 pipeline_token_stream.hpp:36, delimited_token_stream.hpp:37,
 minhash_token_stream.hpp:33-75, ...). The ``classification`` and
 ``nearest_neighbors`` analyzers (fastText-style model inference) live in
-analysis/embed.py — a TPU-first embedding classifier trained in JAX.
+analysis/embed.py — an accelerator-first embedding classifier trained in JAX.
 
 Analyzers here are batch-oriented: ``tokenize(text)`` returns a token list;
 the writer converts to flat (tid, doc, pos) arrays for device inversion.
@@ -14,21 +14,22 @@ the writer converts to flat (tid, doc, pos) arrays for device inversion.
 from __future__ import annotations
 
 import json
+import re
 import unicodedata
 from abc import ABC, abstractmethod
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
-import regex as _regex
-
 from iresearch_tpu.analysis.token import Token
+from iresearch_tpu.analysis.word_chars import word_class
 
 # Unicode word segmentation: the reference uses ICU BreakIterator
-# (segmentation_token_stream.hpp:33); \w+ over NFC text with the `regex`
-# module's Unicode properties is our equivalent host segmentation.
-_WORD_RE = _regex.compile(r"[\w'']+", _regex.UNICODE)
+# (segmentation_token_stream.hpp:33); runs of word characters (letters,
+# marks, digits, connectors — analysis/word_chars.py) and apostrophes
+# over NFC text are our equivalent host segmentation.
+_WORD_RE = re.compile("[" + word_class() + "']+")
 # scripts the dictionary segmenter handles (analysis/cjk.py): Han, kana,
 # Hangul — a regex "word" containing any of these is re-split there
-_CJK_RE = _regex.compile(
+_CJK_RE = re.compile(
     "[ᄀ-ᇿ〇぀-ヿㇰ-ㇿ"
     "㐀-䶿一-鿿가-힣]"
 )
@@ -333,7 +334,7 @@ class MultiDelimiterAnalyzer(Analyzer):
     def __init__(self, delimiters: Sequence[str]) -> None:
         if not delimiters:
             raise ValueError("at least one delimiter required")
-        self._re = _regex.compile("|".join(_regex.escape(d) for d in delimiters))
+        self._re = re.compile("|".join(re.escape(d) for d in delimiters))
 
     def tokenize(self, text: str) -> List[Token]:
         out = []

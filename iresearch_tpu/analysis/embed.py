@@ -8,14 +8,14 @@ neighbour words. Both are configured by JSON
 ``{"model_location": ..., "top_k": ..., ["threshold": ...]}``
 (classification_stream.cpp parameter names).
 
-This is NOT a fastText port: the model here is a minimal TPU-first
+This is NOT a fastText port: the model here is a minimal accelerator-first
 embedding classifier with the same *shape* of capability —
 
 * words + hashed character-ngram buckets share one input embedding table
   (the fastText subword trick; FNV-1a bucket hashing, a public scheme);
 * a document embeds as the mean of its token vectors;
 * supervised training (``train_supervised``) optimizes a softmax label
-  head with full-batch gradient descent **in JAX** — on TPU the whole
+  head with full-batch gradient descent **in JAX** — on the accelerator the whole
   model trains as two matmuls on the MXU; on CPU the same code runs
   through XLA;
 * models persist as a single ``.npz`` (vocab blob + embeddings + labels).

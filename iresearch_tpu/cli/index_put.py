@@ -34,7 +34,7 @@ def parse_args(argv):
     p.add_argument("--analyzer", default="segmentation")
     p.add_argument(
         "--invert", default="auto", choices=["auto", "numpy", "device"],
-        help="inversion backend (device = TPU segment sort)",
+        help="inversion backend (device = accelerator segment sort)",
     )
     p.add_argument("--segment-docs-max", type=int, default=1 << 17)
     p.add_argument("--metrics-out", default=None)

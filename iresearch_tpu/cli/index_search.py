@@ -6,7 +6,7 @@ filters (prepareFilter, index-search.cpp:244-460), executes top-N per
 category, and emits per-category CSV stats like the reference's
 "Query execution" report.
 
-Engines: ``device`` (batched TPU executor, the default), ``host`` (numpy
+Engines: ``device`` (batched device executor, the default), ``host`` (numpy
 oracle). Both produce identical rankings.
 """
 

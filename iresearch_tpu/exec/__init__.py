@@ -1,8 +1,8 @@
-"""Device (TPU) query execution.
+"""Device query execution.
 
 The reference executes queries as pull-based scored iterator trees
 (core/search/filter.hpp:62-78, conjunction.hpp, disjunction.hpp). The
-TPU-native executor instead compiles a filter into a dense *block-scan plan*
+device executor instead compiles a filter into a dense *block-scan plan*
 (exec/plan.py) and runs it as one jitted XLA program per plan signature
 (exec/executor.py): gather postings blocks, decode via cumsum, score on the
 VPU, scatter-add into per-leaf dense doc arrays, fold the boolean tree

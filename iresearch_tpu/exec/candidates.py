@@ -5,12 +5,12 @@ The reference's hot path touches only postings — leapfrog conjunction
 (core/search/disjunction.hpp:860-1100), skip lists
 (core/formats/formats_10.cpp:320-323). The round-1 dense executor folded
 per-leaf [L, nd_pad] arrays instead: exact, but O(corpus) per query — and
-its scatter-adds serialize on TPU (~tens of ns per element), which is the
-real cost at any corpus size.
+its scatter-adds were measured far slower per element than streams or
+sorts, which is the real cost at any corpus size.
 
-This module is the TPU-native answer: three scatter-free tiers picked at
-plan time (exec/plan.py). Only gathers, sorts, segmented scans and top-k —
-all full-speed vector ops on the VPU:
+This module's answer: three scatter-free tiers picked at plan time
+(exec/plan.py). Only gathers, sorts, segmented scans and top-k — all
+full-speed vector ops:
 
 * ``direct`` — single-span leaf (one term): decoded docs are unique, so
   contributions ARE final scores; top-k straight over the [P] decoded
@@ -151,8 +151,8 @@ def dslice_topk(
     A term's postings rows are contiguous in each class pool by
     construction (formats/postings.py appends per class in tid order), so
     the decode needs no row gather at all: three dynamic_slices stream the
-    rows at HBM speed. Measured on v5e at 5M docs: 27x faster than the
-    row-gather decode for a 713-block term (the luceneutil MedTerm shape).
+    rows at device-memory speed, where the row-gather decode reads a
+    gathered block per row (the luceneutil MedTerm shape is 713 blocks).
     Rows past the term's real count decode other terms' data and are
     masked by ``nreal``; block-max pruning is NOT applied here — in
     candidate space pruning only redirects rows to the sentinel (same
@@ -198,8 +198,8 @@ def dslice_core(
 
     Shared by the single-query path (contiguous dynamic_slices above) and
     the batched path (exec/batch.py gathers all queries' rows in ONE flat
-    row-index gather — vmapping the dynamic_slices lowers to ~8 ns/element
-    gathers, 50x the flat-gather cost on v5e)."""
+    row-index gather — vmapping the dynamic_slices lowers to per-element
+    gathers instead)."""
     import jax.numpy as jnp
 
     from iresearch_tpu.formats.bitpack import unpack_jnp
@@ -330,7 +330,7 @@ def join_topk(
     Candidates are the driver span's decoded docs (the smallest required
     leaf, so P_d is small). Every other span is NEVER fully decoded:
     each candidate binary-searches the span's per-block ``base`` doc ids
-    (sort-based searchsorted — TPU's fast path) to find the one 128-doc
+    (sort-based searchsorted) to find the one 128-doc
     block that could contain it, gathers just that block's packed words,
     and probes all 128 lanes with a compare+masked-sum. Work per span is
     P_d × 128 vector lanes + P_d tiny gathers — independent of the span's

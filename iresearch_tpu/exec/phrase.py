@@ -2,7 +2,7 @@
 
 Reference: by_phrase executes as a conjunction wrapped in a position
 checker that leapfrogs per-part position iterators doc by doc
-(core/search/phrase_iterator.hpp:75-160). The TPU formulation processes
+(core/search/phrase_iterator.hpp:75-160). The device formulation processes
 ALL docs at once: each part's (doc, position - offset) pairs become sorted
 int32 keys ``doc * pos_cap + shifted_pos``; the phrase hits are the keys of
 part 0 that appear in every other part (vectorized ``searchsorted``

@@ -3,7 +3,7 @@
 The reference compiles a filter into per-segment prepared state holding
 cached term cookies and collected stats (filter::prepare,
 core/search/filter.hpp:62-78; multiterm_query.hpp; states_cache.hpp). The
-TPU analog compiles, per segment, a *flat row program*:
+device analog compiles, per segment, a *flat row program*:
 
 * every scored/unscored sampled term contributes its postings-block rows to
   a per-(field, width-class) **row group**: `rows[i]` (row index into the
@@ -61,9 +61,11 @@ def _pow2(n: int) -> int:
     return p
 
 
-# Tier-selection thresholds (see exec/candidates.py). The dense fold's
-# scatter-add serializes on TPU (~tens of ns/element), so the scatter-free
-# sort tier wins even when decoded lanes exceed the corpus size; join is
+# Tier-selection thresholds (see exec/candidates.py), set from primitive
+# costs measured on an earlier accelerator and not yet re-measured on the
+# GPU: there the dense fold's scatter-add was far slower per element than
+# streaming, so the scatter-free sort tier wins even when decoded lanes
+# exceed the corpus size; join is
 # pure searchsorted gathers and wins whenever a driver exists, but each
 # span becomes a row group, so cap the span count. Tunable for profiling.
 SORT_MAX_RATIO = float(os.environ.get("IRS_SORT_MAX_RATIO", "64.0"))

@@ -131,9 +131,9 @@ class MergedBatch:
         item 4: cost per extra segment must be marginal; the reference's
         per-segment loop, utils/index-search.cpp:718, pays only a
         prepared-state walk per extra segment — here one dispatch covers
-        the whole index, so per-pass launch/relay overhead is O(1) in
-        segments, and the relay executable cache holds ONE program for
-        the whole pass instead of S+1).  The program is cached globally
+        the whole index, so per-pass launch overhead is O(1) in
+        segments, and ONE compiled program serves the whole pass
+        instead of S+1).  The program is cached globally
         by the per-segment template keys (exec/batch._FUSED_CACHE), so
         serving workloads re-dispatch without retracing.
 

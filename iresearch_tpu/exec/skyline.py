@@ -3,7 +3,7 @@
 The fused row-max scan (ops/dense_scan.py) reads every grid row of every
 span — ~16 MB of HBM per term query at 5M docs. But the top-k threshold
 θ prunes almost all of that: the reference's wanderator skips sub-θ
-blocks via skip-list bounds (formats_10.cpp:2426-2825). The TPU-native
+blocks via skip-list bounds (formats_10.cpp:2426-2825). The device
 analog precomputes, per (field, scorer), row-aligned score UPPER bounds
 for each dense span; at query time the host derives
 
@@ -505,7 +505,7 @@ def skyline_topk_batch(
     """Batched skyline_topk: per-query (vals [Q, k], docs [Q, k]).
 
     The row gathers use ONE flat [Q*M] 1-D index per operand — XLA's
-    fast row-copy lowering (~0.1-0.5 ns/element on v5e). vmapping
+    fast row-copy lowering. vmapping
     skyline_topk instead produces 2-D [Q, M] gather indices, which lower
     to ~8 ns/element scalar gathers (measured 0.9 ms/query at M=8192).
     Only the final per-query top-k is vmapped."""

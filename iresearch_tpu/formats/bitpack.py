@@ -1,7 +1,7 @@
-"""Pow2-bit block packing — the TPU replacement for simdcomp.
+"""Pow2-bit block packing — the device replacement for simdcomp.
 
 Reference: postings blocks are bit-packed at arbitrary widths 1..32 with
-SSE unpack (core/formats/formats_10.cpp:87-130, external/simdcomp). On TPU
+SSE unpack (core/formats/formats_10.cpp:87-130, external/simdcomp). On a vector device
 arbitrary widths force cross-word gathers; quantizing widths to powers of
 two {1,2,4,8,16,32} makes unpack a *pure vector* op — each 32-bit word
 holds 32/b lanes, so decode is repeat(word, 32/b) >> lane_shift & mask:
@@ -45,7 +45,7 @@ def _mask(b: int) -> int:
 def pack_blocks(vals: np.ndarray, b: int) -> np.ndarray:
     """[n, 128] u32 (< 2^b) -> [n, 4*b] u32 words, planar layout: lane j
     lives in word ``j % (4*b)`` at bit ``(j // (4*b)) * b`` — so unpack is
-    tile(words) >> shift & mask, matching pltpu.repeat's tiling.
+    tile(words) >> shift & mask (lane j reads word j % wpb).
 
     Pure u32 arithmetic: every shifted value stays inside 32 bits (val <
     2^b shifted by <= 32-b), and the per-group loop avoids the [n, g, wpb]

@@ -2,14 +2,13 @@
 
 A term whose df approaches the corpus size makes candidate-space
 execution O(corpus) *with sort constants*: the 3-operand lax.sort over
-an OrHighHigh's ~16M decoded lanes measured ~400 ms on v5e, and the
-dense tier's scatter-adds are no better (~30 ns/lane serialized).
-TPU-natively, such a term is better stored **in doc-grid order**: one
+an OrHighHigh's ~16M decoded lanes is costly, and the dense tier's
+scatter-adds are no better. Such a term is better stored **in doc-grid order**: one
 packed freq lane per doc (freq 0 = absent), rows of 128 docs in the
 same planar pow2-width classes as the delta pools. Placement in the
 [nd] fold then costs *nothing* — the data is already grid-aligned, so
 a leaf's contribution is a sequential unpack + elementwise score at
-HBM stream speed, with no sort, no scatter and no gather.
+device-memory stream speed, with no sort, no scatter and no gather.
 
 This mirrors what roaring bitmaps / Lucene dense blocks do for high-df
 postings (reference: sparse_bitmap.hpp ALL/dense containers), taken one
@@ -33,10 +32,11 @@ from iresearch_tpu.formats.postings import FieldPostings
 from iresearch_tpu.formats.spec import BLOCK, NUM_CLASSES, TermCols, pad_docs
 
 # df >= nd / DENSE_MIN_RATIO qualifies a term for the grid representation.
-# Measured on v5e (scripts/bench_placement.py): grid streaming costs
-# ~0.7 ns/lane while the gather/scatter/sort alternatives cost 4-10
-# ns/lane — so any term whose lists disjunctions/conjunctions routinely
-# touch should live on the grid. 64 reaches the luceneutil "Med" band;
+# Set from primitive costs measured on an earlier accelerator, where grid
+# streaming cost several times less per lane than the gather/scatter/sort
+# alternatives (scripts/bench_placement.py measures them; the GPU figures
+# are not taken yet) — so any term whose lists disjunctions/conjunctions
+# routinely touch should live on the grid. 64 reaches the luceneutil "Med" band;
 # storage is device-side only and capped below.
 DENSE_MIN_RATIO = 128
 # grid rows cost nd/128 rows per term; cap the cache size per field

@@ -3,7 +3,7 @@
 Reference format (core/formats/formats_10.cpp:90-333): 128-doc bit-packed
 delta blocks with embedded 9-level skip lists, bitwidth chosen per block.
 
-TPU-native format: a posting list is a run of *bit-packed block rows* in
+Device format: a posting list is a run of *bit-packed block rows* in
 one of six pow2-width classes (see formats/bitpack.py). Doc-delta blocks
 and frequency blocks are classed **independently** (a rare term has wide
 deltas but tiny freqs), mirroring the reference's separate .doc stream
@@ -27,7 +27,7 @@ from enum import IntEnum, IntFlag
 import numpy as np
 
 # Docs per postings block (reference: format_traits::block_size == 128,
-# formats_10.cpp:90). 128 is also the TPU lane count — a block is one vector.
+# formats_10.cpp:90). A block is one 128-lane vector row.
 BLOCK = 128
 
 # Width classes: pow2 bit widths (see formats/bitpack.py BITS).
@@ -74,11 +74,11 @@ class TermCols(IntEnum):
     # format v5: per-entry doc lengths (norms) bit-packed into classed
     # block pools parallel to the freq blocks. Scoring needs dl per decoded
     # lane; gathering it from the dense [num_docs] norms array is a random
-    # per-lane HBM gather (~7 ns/lane on TPU — measured 70% of query time).
+    # per-lane device-memory gather (it dominated query time when measured).
     # Inlining norms into the postings turns that into the same sequential
     # row-gather the doc/freq pools use. (The reference reads norms via a
     # per-doc column, norm.hpp:46-198 — a CPU-cache-friendly pattern that
-    # does not translate to TPU.)
+    # does not translate to a vector device.)
     NCLS = 12      # width class of this list's norm blocks
     NSTART = 13    # first block row within the norm-class pool
 

@@ -1,7 +1,7 @@
 """Inversion: token tuples -> sorted postings entries.
 
 Reference hot path: core/index/field_data.cpp:985 (``field_data::invert``)
-builds an in-RAM hash->byte-pool index one token at a time. The TPU-native
+builds an in-RAM hash->byte-pool index one token at a time. The device
 replacement is a *segment sort*: the token stream for a field is three flat
 arrays ``(tid, doc, pos)``; inversion is one stable sort by ``tid`` (tokens
 already arrive in (doc, pos) order) followed by run-length detection of
@@ -83,7 +83,7 @@ def invert_device(
     num_terms: int,
     num_docs: int,
 ) -> InvertedEntries:
-    """Device inversion: one TPU sort + vectorized run detection.
+    """Device inversion: one device sort + vectorized run detection.
 
     The jitted kernel works on power-of-two padded token counts (padding
     tokens carry the sentinel tid ``num_terms`` which sorts last and is

@@ -1,13 +1,2 @@
-"""Pallas TPU kernels for the postings hot path.
-
-The XLA executor (exec/executor.py) expresses decode as gather + repeat/
-shift + cumsum and lets XLA fuse; these kernels are the hand-scheduled
-alternative for the largest row sets, using scalar-prefetch block gather
-so each postings block row is DMA'd from HBM exactly once and decoded in
-VMEM (the Pallas analog of simdcomp's unpack loop, reference:
-core/formats/formats_10.cpp:87-130 + external/simdcomp).
-"""
-
-from iresearch_tpu.ops.decode import decode_rows_pallas, pallas_available
-
-__all__ = ["decode_rows_pallas", "pallas_available"]
+"""Device operators shared by the executors: the fused dense-grid scan
+(ops/dense_scan.py) and top-k over wide rows (ops/topk.py)."""

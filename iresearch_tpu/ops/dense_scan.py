@@ -1,22 +1,16 @@
-"""Fused Pallas scan over dense-grid spans: the speed-of-light term scan.
+"""Fused scan over dense-grid spans: the speed-of-light term scan.
 
-For a single-leaf sum tree over dense-grid spans (TermQuery, collapsed
-OrHighN — the head of every query mix), the XLA dense path materializes
-several [nd] f32 intermediates (unpacked freqs, scores, fold channels,
-top-k operand) — ~25x the index bytes actually needed. This kernel
-reads ONLY the packed freq rows and the norms, computes BM25/TFIDF
-scores in-register, and reduces each 128-doc row to (max score, argmax
-lane): HBM traffic collapses to the packed pools + one [nd/128] output
-pair.
+For a sum tree over dense-grid spans (TermQuery, collapsed OrHighN,
+all-dense conjunctions and min_match disjunctions), the fold path
+materializes several [nd] f32 intermediates (unpacked freqs, scores,
+fold channels, top-k operand). The row-max scan reads ONLY the packed
+freq rows and the norms, scores them, and reduces each 128-doc row to
+(max score, first argmax lane): the [nd] operands never reach device
+memory, XLA fuses the unpack, score and row reduction into one pass.
 
-Top-k then runs tournament-style on the row maxima (ops/topk.py logic)
-with a repair step that RE-SCORES just the winning row (128 lanes, in
-plain JAX) after each extraction — exact, including the smaller-doc
+Top-k then picks the best rows by row max and RE-SCORES just those
+rows (128 lanes each, in plain JAX) — exact, including the smaller-doc
 tie rule.
-
-Mosaic notes (see ops/decode.py): pltpu.repeat tiles copies — which is
-exactly the planar pow2 layout's unpack; u32->f32 has no lowering, so
-casts go through i32; all refs are 3-D with a unit sublane dim.
 """
 
 from __future__ import annotations
@@ -25,28 +19,9 @@ import functools
 from typing import Tuple
 
 import jax
-import numpy as np
 
 from iresearch_tpu.formats.bitpack import words_per_block
 from iresearch_tpu.formats.spec import BLOCK
-
-# the Pallas kernel measured ~3 ms for a 5.24M-lane span on v5e while
-# the fused XLA reduction runs the same math in ~0.2 ms — XLA wins here
-# (reductions fuse; Mosaic's per-step overhead dominates at these tile
-# shapes). Keep the kernel behind a flag for future tuning.
-_USE_PALLAS_ROWMAX = (
-    __import__("os").environ.get("IRS_PALLAS_ROWMAX", "0") == "1"
-)
-
-def _rows_step(ndrows: int) -> int:
-    """Rows per grid step: large tiles keep the DMA pipeline busy (a
-    256-row step moves a 128 KB norms block); small segments fall back
-    to whatever power of two divides."""
-    for step in (256, 128, 64, 32, 16, 8, 4, 2):
-        if ndrows % step == 0:
-            return step
-    return 1
-
 
 def _score_expr(scorer, w, f, dl, avgdl, jnp):
     """Elementwise score of one span on a tile (mirrors score_block)."""
@@ -73,9 +48,10 @@ def dense_scan_rowmax_xla(
     span_words, span_w, norms, avgdl, *, scorer, span_bits, conj=False,
     mm=1,
 ):
-    """jnp twin of the Pallas row-max kernel: XLA fuses the unpack +
-    score + row reduction into one pass with no materialized [nd]
-    operands surviving to HBM (reductions fuse into their producers)."""
+    """(row_max f32 [ndrows], row_arg i32 [ndrows]) of the summed span
+    scores; rows with no hit get -inf. XLA fuses the unpack + score +
+    row reduction into one pass with no materialized [nd] operands
+    surviving to device memory (reductions fuse into their producers)."""
     import jax.numpy as jnp
 
     from iresearch_tpu.formats.bitpack import unpack_jnp
@@ -108,109 +84,6 @@ def dense_scan_rowmax_xla(
         jnp.where(masked == amax[:, None], lane_i[None, :], BLOCK), axis=1
     ).astype(jnp.int32)
     return amax, jnp.minimum(first, BLOCK - 1)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("scorer", "span_bits", "interpret", "conj", "mm"),
-)
-def dense_scan_rowmax(
-    span_words,  # tuple: u32 [ndrows, wpb_s] per span (pre-sliced rows)
-    span_w,  # tuple: f32 scalar per span
-    norms,  # f32 [ndrows, 128] doc lengths (grid order, clamped >= 1)
-    avgdl,  # f32 scalar
-    *,
-    scorer,
-    span_bits: Tuple[int, ...],
-    interpret: bool = False,
-    conj: bool = False,
-    mm: int = 1,
-):
-    """(row_max f32 [ndrows], row_arg i32 [ndrows]) of the summed span
-    scores; rows with no hit get -inf."""
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    ndrows = norms.shape[0]
-    _ROWS = _rows_step(ndrows)
-    grid = ndrows // _ROWS
-    S = len(span_words)
-
-    def kernel(*refs):
-        word_refs = refs[:S]
-        nrm_ref = refs[S]
-        w_refs = refs[S + 1 : 2 * S + 1]
-        avg_ref = refs[2 * S + 1]
-        max_ref, arg_ref = refs[2 * S + 2 :]
-        dl = nrm_ref[0]
-        avg = avg_ref[0, 0, 0]
-        score = jnp.zeros((_ROWS, BLOCK), jnp.float32)
-        fagg = None
-        for s in range(S):
-            b = span_bits[s]
-            g = 32 // b
-            wpb = words_per_block(b)
-            mask = np.uint32(0xFFFFFFFF if b == 32 else (1 << b) - 1)
-            rep = pltpu.repeat(word_refs[s][0], g, axis=1)  # [_ROWS, 128]
-            lane = jax.lax.broadcasted_iota(jnp.uint32, rep.shape, 1)
-            shift = (lane // np.uint32(wpb)) * np.uint32(b)
-            f = ((rep >> shift) & mask).astype(jnp.int32).astype(jnp.float32)
-            score = score + _score_expr(
-                scorer, w_refs[s][0, 0, 0], f, dl, avg, jnp
-            )
-            h = (f > 0.0).astype(jnp.float32) if mm > 1 else f
-            fagg = h if fagg is None else (
-                jnp.minimum(fagg, h) if conj else fagg + h
-            )
-        hit = fagg >= float(mm) if mm > 1 else fagg > 0.0
-        masked = jnp.where(hit, score, -jnp.inf)
-        max_ref[0] = jnp.max(masked, axis=1).reshape(1, _ROWS)
-        lane_i = jax.lax.broadcasted_iota(jnp.int32, masked.shape, 1)
-        amax = jnp.max(masked, axis=1).reshape(_ROWS, 1)
-        first = jnp.min(
-            jnp.where(masked == amax, lane_i, BLOCK), axis=1
-        )
-        arg_ref[0] = first.reshape(1, _ROWS)
-
-    in_specs = [
-        pl.BlockSpec(
-            (1, _ROWS, words_per_block(span_bits[s])),
-            lambda i: (i, 0, 0),
-        )
-        for s in range(S)
-    ]
-    in_specs.append(pl.BlockSpec((1, _ROWS, BLOCK), lambda i: (i, 0, 0)))
-    in_specs.extend(
-        pl.BlockSpec((1, 1, 1), lambda i: (0, 0, 0)) for _ in range(S)
-    )
-    in_specs.append(pl.BlockSpec((1, 1, 1), lambda i: (0, 0, 0)))
-
-    args = [
-        w.reshape(grid, _ROWS, words_per_block(span_bits[s]))
-        for s, w in enumerate(span_words)
-    ]
-    args.append(norms.reshape(grid, _ROWS, BLOCK))
-    args.extend(
-        jnp.asarray(w, jnp.float32).reshape(1, 1, 1) for w in span_w
-    )
-    args.append(jnp.asarray(avgdl, jnp.float32).reshape(1, 1, 1))
-
-    row_max, row_arg = pl.pallas_call(
-        kernel,
-        out_shape=[
-            jax.ShapeDtypeStruct((grid, 1, _ROWS), jnp.float32),
-            jax.ShapeDtypeStruct((grid, 1, _ROWS), jnp.int32),
-        ],
-        grid=(grid,),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((1, 1, _ROWS), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, 1, _ROWS), lambda i: (i, 0, 0)),
-        ],
-        interpret=interpret,
-    )(*args)
-    return row_max.reshape(ndrows), row_arg.reshape(ndrows)
 
 
 def _score_rows(
@@ -251,7 +124,7 @@ def _score_rows(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "scorer", "span_bits", "k", "interpret", "conj", "mm",
+        "scorer", "span_bits", "k", "conj", "mm",
     ),
 )
 def dense_scan_topk(
@@ -263,7 +136,6 @@ def dense_scan_topk(
     scorer,
     span_bits: Tuple[int, ...],
     k: int,
-    interpret: bool = False,
     conj: bool = False,
     mm: int = 1,
 ):
@@ -282,17 +154,10 @@ def dense_scan_topk(
 
     from iresearch_tpu.ops.topk import wide_top_k
 
-    if _USE_PALLAS_ROWMAX:
-        bv, _bi = dense_scan_rowmax(
-            span_words, span_w, norms, avgdl,
-            scorer=scorer, span_bits=span_bits, interpret=interpret,
-            conj=conj, mm=mm,
-        )
-    else:
-        bv, _bi = dense_scan_rowmax_xla(
-            span_words, span_w, norms, avgdl,
-            scorer=scorer, span_bits=span_bits, conj=conj, mm=mm,
-        )
+    bv, _bi = dense_scan_rowmax_xla(
+        span_words, span_w, norms, avgdl,
+        scorer=scorer, span_bits=span_bits, conj=conj, mm=mm,
+    )
     ndrows = norms.shape[0]
     m = min(max(2 * k, 16), ndrows)
     _rv, rows = wide_top_k(bv, m)

@@ -1,7 +1,7 @@
 """Scale-out: segment sharding over a device mesh.
 
 The reference is a single-process library — distribution lives in the
-embedding database above it (SURVEY.md §2.11). The TPU-native framework
+embedding database above it (SURVEY.md §2.11). This framework
 makes sharding first-class: segments are placed along a 1-D ``jax.sharding
 .Mesh`` axis, a query executes on every shard via ``shard_map`` (decode →
 score → local top-k), and shards merge ``(score, global_doc)`` candidates

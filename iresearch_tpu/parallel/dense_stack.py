@@ -58,7 +58,9 @@ class _UniformCache:
 class UniformDenseLayout:
     """Uniform cross-shard dense layout for one field."""
 
-    def __init__(self, segments, fname: str) -> None:
+    def __init__(self, segments, fname: str, nd_pad: int) -> None:
+        """``nd_pad``: the sharded doc axis, at least every segment's
+        padded doc count; shorter grids are zero-padded up to it."""
         self.fname = fname
         self.segments = list(segments)
         S = len(self.segments)
@@ -94,9 +96,13 @@ class UniformDenseLayout:
             if ok:
                 elig.add(b)
         self.terms: List[bytes] = sorted(elig)
-        self.stride = max(
-            [c.ndrows for c in per_shard if c is not None] or [1]
-        )
+        # rows per term: the sharded doc axis, which segments whose
+        # padded grids are shorter (pad_docs rounds finer than a power of
+        # two) fill with zero rows — freq 0, an exact no-op
+        self.stride = nd_pad // BLOCK
+        assert all(
+            c.ndrows <= self.stride for c in per_shard if c is not None
+        ), "nd_pad must cover every segment's grid"
         # uniform class per term: max across shards
         self.cls: Dict[bytes, int] = {}
         for sr, cache in zip(self.segments, per_shard):

@@ -1,15 +1,20 @@
-"""Multi-host (DCN) dryrun — the shard_map program across processes.
+"""Multi-host dryrun — the shard_map program across processes.
 
-SURVEY §2.11 TPU-native item 1 specifies "multi-host via DCN with the
-same collective". The library's sharded execution is mesh-shape
-agnostic: `ShardedSearcher` only sees a `jax.sharding.Mesh`, and the
-ICI `all_gather` merge in `_sharded_topk_batch` compiles to a DCN
-collective unchanged when the mesh spans processes. This module proves
-it end-to-end without multi-host hardware: N local processes, each
-with K virtual CPU devices, join one `jax.distributed` cluster (gloo
-CPU collectives stand in for DCN) and run the SAME `prepare_many`
-search over the 2-D-less global mesh, validating against the host
-oracle in every process.
+SURVEY §2.11 item 1 specifies "multi-host with the same collective".
+The library's sharded execution is mesh-shape agnostic:
+`ShardedSearcher` only sees a `jax.sharding.Mesh`, and the `all_gather`
+merge in `_sharded_topk_batch` compiles to a cross-process collective
+unchanged when the mesh spans processes. This module proves it end to
+end without multi-host hardware: N local processes, each with K virtual
+CPU devices, join one `jax.distributed` cluster (gloo CPU collectives
+stand in for the network) and run the SAME `prepare_many` search over
+the global mesh, validating against the host oracle in every process.
+
+It is the only place the library starts processes, and every worker
+forces the CPU backend: a JAX process reserves most of a GPU's memory
+when it first uses the card, so workers sharing a card would fail. On
+GPUs one process drives all local cards (`ShardedSearcher` over
+`jax.devices()`); a real multi-host run starts one process per host.
 
 Run a worker:
 
@@ -142,7 +147,7 @@ def dryrun_multihost(
 
     The same `_sharded_topk_batch` program body runs unchanged — the
     all_gather merge rides gloo across process boundaries exactly as it
-    would ride DCN between TPU hosts."""
+    would ride the network between hosts."""
     import socket
 
     with socket.socket() as s:  # free localhost port for the coordinator

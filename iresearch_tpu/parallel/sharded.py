@@ -175,7 +175,7 @@ class ShardedSearcher:
         if lay is None:
             from iresearch_tpu.parallel.dense_stack import UniformDenseLayout
 
-            lay = UniformDenseLayout(self.segments, fname)
+            lay = UniformDenseLayout(self.segments, fname, self.nd_pad)
             self._dense_layouts[fname] = lay
         return lay
 

@@ -2,7 +2,7 @@
 
 Reference: python/pyresearch.hpp:47-60 + python/swig/pyresearch.i — the
 SWIG module exposing index_reader / segment_reader / field_reader /
-term_iterator / doc_iterator / column readers. The TPU engine is already
+term_iterator / doc_iterator / column readers. This engine is already
 Python, so this module is a thin iterator-style facade over the native
 readers, letting scripts written against pyresearch (e.g.
 python/scripts/index-dump.py) port with only an import change.

@@ -3,7 +3,7 @@
 ``filters`` is the user-facing AST; ``prepare()`` compiles a filter against
 an index snapshot (collecting index-wide stats like the reference's
 filter::prepare), and execution is either the numpy host oracle
-(``host_eval``) or the TPU executor (``executor``) — both share the same
+(``host_eval``) or the device executor (``executor``) — both share the same
 term-expansion planner and produce identical results.
 """
 

@@ -1,4 +1,4 @@
-"""Multi-term expansion + sampling, shared by host oracle and TPU planner.
+"""Multi-term expansion + sampling, shared by host oracle and device planner.
 
 Reference behaviors matched:
 * prefix/range/wildcard sample the top ``scored_terms_limit`` (segment, term)

@@ -1,6 +1,6 @@
 """Host (numpy) query evaluator — the exact-semantics reference engine.
 
-This is the oracle the TPU executor is tested against, and the evaluator
+This is the oracle the device executor is tested against, and the evaluator
 the writer uses for Remove-by-filter. Semantics follow the reference:
 
 * boolean algebra: And = conjunction with Not-extraction (exclusion),

@@ -15,7 +15,7 @@ TFIDF (tfidf.cpp:72-75, 254-256, 276):
     score  = boost * idf * sqrt(freq) * (1/sqrt(dl))   [norms on]
     score  = boost * idf * sqrt(freq)                  [norms off]
 
-Both the numpy host oracle and the TPU kernel evaluate scores through
+Both the numpy host oracle and the device executor evaluate scores through
 ``score_block`` / its jnp twin so semantics cannot drift.
 """
 
@@ -127,7 +127,7 @@ def score_block(
 ):
     """Per-posting score contributions; exactly 0 where freq == 0.
 
-    ``xp`` is numpy for the host oracle or jax.numpy in the TPU kernel.
+    ``xp`` is numpy for the host oracle or jax.numpy on the device.
     """
     f = freqs
     if isinstance(scorer, BM25):

@@ -2,7 +2,7 @@
 
 The reference serializes each index structure through byte streams with
 vint coding and per-file CRC32 footers (core/store/data_output.hpp:38-123,
-store_utils.hpp). The TPU engine instead wants each segment pool as one
+store_utils.hpp). This engine instead wants each segment pool as one
 contiguous, 64-byte-aligned buffer so it can be handed to
 ``jax.device_put`` / ``np.frombuffer`` without a decode pass — so a segment
 file is a *pack of named numpy arrays* plus a JSON meta dict:

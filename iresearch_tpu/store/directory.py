@@ -4,7 +4,7 @@ Reference: core/store/directory.hpp:39-97 (create/open/rename/sync/list,
 ``index_lock`` single-writer lock), core/store/memory_directory.hpp:40,
 core/store/fs_directory.hpp:33, core/store/directory_cleaner.hpp:41.
 
-Design departures for the TPU engine:
+Design departures for this engine:
 
 * Files are whole-blob oriented (segment array packs, JSON manifests) rather
   than streamed: device upload wants one contiguous buffer per pool, so the

@@ -3,7 +3,7 @@
 Reference: core/utils/register.hpp:78-117 — a registry ``get(key,
 load_library=true)`` miss derives a shared-object filename from the key,
 dlopens it, and the library self-registers; ``so_utils.hpp:load_libraries``
-scans a directory for prefixed/suffixed plugin libraries. The TPU engine's
+scans a directory for prefixed/suffixed plugin libraries. This engine's
 analog uses a small versioned C ABI instead of C++ static initializers
 (stable across compilers, loadable via ctypes):
 

@@ -3,7 +3,7 @@
 Reference: core/utils/object_pool.hpp (bounded_object_pool :144,
 unbounded_object_pool :379 — reusable segment writers/readers) and
 core/utils/async_utils.hpp:54 (fixed ThreadPool with named threads) +
-wait_group.hpp. The TPU build's writer pools transaction contexts
+wait_group.hpp. This build's writer pools transaction contexts
 (_PendingSegment) so concurrent transactions reuse term-dictionary and
 stream buffers instead of reallocating them per batch.
 """

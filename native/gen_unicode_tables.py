@@ -1,13 +1,14 @@
 """Generate unicode_tables.inc for the native UTF-8 tokenizer.
 
 The native tokenizer must produce byte-identical tokens to the Python
-segmentation analyzer (analyzers.py: regex \\w+ classes, str.isalpha /
-isdigit, str.lower/upper). Rather than re-deriving Unicode semantics in
-C++, the tables are generated FROM the same Python runtime at build time
-(Makefile rule), so the two paths agree by construction.
+segmentation analyzer (analyzers.py: the word class of
+analysis/word_chars.py, str.isalpha / isdigit, str.lower/upper). Rather
+than re-deriving Unicode semantics in C++, the tables are generated FROM
+the same data and Python runtime at build time (Makefile rule), so the
+two paths agree by construction.
 
 Flags per code point:
-  1  WORD   — matches the `regex` module's \\w (token character)
+  1  WORD   — in analysis/word_chars.py's WORD_RANGES (token character)
   2  ALPHA  — str.isalpha
   4  DIGIT  — str.isdigit
   8  CASE_COMPLEX — lower()/upper() is multi-char or context-sensitive
@@ -16,16 +17,29 @@ Flags per code point:
 Case deltas (lower/upper) are simple single-char mappings.
 """
 
+import importlib.util
+import os
 import sys
-
-import regex
 
 NCP = 0x110000
 BLOCK = 256
-WORD_RE = regex.compile(r"\w", regex.UNICODE)
+
+
+def _word_chars():
+    """analysis/word_chars.py, loaded by path: the table needs neither the
+    package's imports nor any third-party module."""
+    path = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), os.pardir,
+        "iresearch_tpu", "analysis", "word_chars.py",
+    )
+    spec = importlib.util.spec_from_file_location("word_chars", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main() -> None:
+    is_word = _word_chars().is_word
     flags = bytearray(NCP)
     lower = [0] * NCP
     upper = [0] * NCP
@@ -34,7 +48,7 @@ def main() -> None:
             continue  # surrogates: invalid in UTF-8, decoder rejects
         ch = chr(cp)
         f = 0
-        if WORD_RE.match(ch):
+        if is_word(cp):
             f |= 1
         if ch.isalpha():
             f |= 2

@@ -1,6 +1,6 @@
 // Native host components (reference parity: the reference implements its
 // whole host side in C++20 — analysis in core/analysis/, Levenshtein in
-// core/utils/levenshtein_utils.cpp). The TPU build keeps device work in
+// core/utils/levenshtein_utils.cpp). This build keeps device work in
 // XLA/Pallas and uses this library for the hot host paths:
 //   * ASCII word segmentation + case folding (write-path tokenizer,
 //     reference: segmentation_token_stream.cpp)

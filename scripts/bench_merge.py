@@ -6,7 +6,7 @@ decode→lexsort→re-encode path, asserting byte-identical outputs.
 
 Reference: /root/reference/core/index/merge_writer.cpp — the reference
 treats segment merging as a HOT path (SURVEY §3.6); this records the
-wall-clock evidence for the TPU-native engine's native one-pass merge
+wall-clock evidence for the engine's native one-pass merge
 (iresearch_native.cpp:irs_merge_decode).
 
 Usage:  python scripts/bench_merge.py [ndocs_per_segment]
@@ -75,6 +75,9 @@ def load_or_build(si: int, n: int):
 
 
 def main():
+    from iresearch_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 5_000_000
     from iresearch_tpu.index.merge import merge_segments
     from iresearch_tpu.index.segment import SegmentReader

@@ -1,16 +1,20 @@
 """Measure the three placement primitives that decide executor tiers.
 
-On TPU the executor must place decoded (doc, score) lanes somewhere a
+The executor must place decoded (doc, score) lanes somewhere a
 tree fold can combine them. The candidates are:
   scatter  — leaf_score.at[docs].add(sc) into a [nd] grid
   sort     — lax.sort((docs, sc, pay), num_keys=1) + segmented scan
   gather   — random sc[docs] reads (probe direction)
   stream   — sequential elementwise over [nd] (the dense-term path)
-This prints ns/lane for each at several sizes on the real chip, so tier
+This prints ns/lane for each at several sizes on the device, so tier
 thresholds in exec/plan.py are set from measurements, not folklore.
 """
 
+import os
+import sys
 import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -18,22 +22,19 @@ import numpy as np
 from jax import lax
 
 
-def sync(x):
-    return float(np.asarray(x.reshape(-1)[0]))
-
-
 def timeit(fn, *args, reps=10):
-    fn(*args)[0].block_until_ready() if isinstance(fn(*args), tuple) else None
-    r = fn(*args)
-    sync(r[0] if isinstance(r, tuple) else r)
-    t0 = time.time()
+    jax.block_until_ready(fn(*args))
+    t0 = time.perf_counter()
     for _ in range(reps):
         r = fn(*args)
-    sync(r[0] if isinstance(r, tuple) else r)
-    return (time.time() - t0) / reps
+    jax.block_until_ready(r)
+    return (time.perf_counter() - t0) / reps
 
 
 def main():
+    from iresearch_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     nd = 5_242_880
     rng = np.random.default_rng(0)
     print(f"devices: {jax.devices()}")

@@ -24,6 +24,9 @@ CACHE = os.path.join(REPO, ".bench_cache")
 
 
 def main():
+    from iresearch_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from iresearch_tpu.formats.segment_io import read_segment
     from iresearch_tpu.index.segment import SegmentReader
     from iresearch_tpu.search import filters as F

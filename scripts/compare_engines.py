@@ -4,7 +4,7 @@ Reference analog: scripts/start-benchmark-comparison.sh races IResearch
 against Lucene over a doc-count ladder and format-benchmark-results.sh
 collates per-category execution times. The reference C++ binary cannot be
 built in-image (BASELINE.md), so this harness races the two engines this
-package ships — the TPU device executor and the numpy host oracle — on an
+package ships — the device executor and the numpy host oracle — on an
 identical corpus and task mix, verifying recall@K == 1.0 between them and
 emitting the same per-category CSV shape.
 
@@ -141,6 +141,9 @@ def run_compare(num_docs: int, topn: int, per_cat: int):
 
 
 def main(argv=None) -> int:
+    from iresearch_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--docs", type=int, default=50_000)
     p.add_argument("--ladder", default=None,
@@ -181,7 +184,7 @@ def main(argv=None) -> int:
         m = MetricsRegistry()
         for n, cat, c, d, h, s in all_rows:
             labels = {"category": cat, "docs": str(n)}
-            m.gauge("Time", d, {**labels, "engine": "tpu"},
+            m.gauge("Time", d, {**labels, "engine": "device"},
                     help_="query execution time (us)")
             m.gauge("Time", h, {**labels, "engine": "host"})
         ok = m.push(args.gateway)

@@ -18,13 +18,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    import jax
+    from iresearch_tpu.utils.compile_cache import enable_compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(__file__), "..", ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    enable_compile_cache()
     from iresearch_tpu.formats.segment_io import read_segment
     from iresearch_tpu.index.segment import SegmentReader
     from iresearch_tpu.search import filters as F

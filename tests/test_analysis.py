@@ -322,3 +322,84 @@ def test_fasttext_bin_loader(tmp_path):
     )
     toks = an.tokenize("hello world")
     assert toks and toks[0].term in labels
+
+
+class TestWordChars:
+    """The committed word class (analysis/word_chars.py) stands in for the
+    ``regex`` package's ``\\w``: same code points, same tokens."""
+
+    def test_ranges_match_regex_w(self):
+        import regex
+
+        from iresearch_tpu.analysis.word_chars import is_word
+
+        w = regex.compile(r"\w", regex.UNICODE)
+        diff = [
+            cp
+            for cp in range(0x110000)
+            if not 0xD800 <= cp <= 0xDFFF
+            and is_word(cp) != (w.match(chr(cp)) is not None)
+        ]
+        assert diff == []
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_word_re_tokens_match_regex(self, seed):
+        import random
+
+        import regex
+
+        from iresearch_tpu.analysis.analyzers import _WORD_RE
+
+        ref = regex.compile(r"[\w'']+", regex.UNICODE)
+        rnd = random.Random(seed)
+        # letters, combining marks (where stdlib \w differs), digits,
+        # punctuation, spaces, CJK, Hangul, emoji and join controls
+        pools = [
+            range(0x20, 0x7F), range(0xC0, 0x250), range(0x300, 0x370),
+            range(0x591, 0x5C8), range(0x900, 0x980), range(0x2000, 0x2070),
+            range(0x3040, 0x3100), range(0x4E00, 0x4E80), range(0xAC00, 0xAC80),
+            range(0x1F300, 0x1F380), range(0xE0100, 0xE0110),
+        ]
+        text = "".join(
+            chr(rnd.choice(rnd.choice(pools))) for _ in range(4000)
+        )
+        got = [m.span() for m in _WORD_RE.finditer(text)]
+        want = [m.span() for m in ref.finditer(text)]
+        assert got == want
+
+    def test_analyzers_import_without_regex(self):
+        import subprocess
+        import sys
+
+        code = (
+            "import sys; sys.modules['regex'] = None; "
+            "from iresearch_tpu.analysis.analyzers import SegmentationAnalyzer; "
+            "print([t.term.decode() for t in "
+            "SegmentationAnalyzer().tokenize('Cafe\\u0301 naïve x_y 42')])"
+        )
+        out = subprocess.run(
+            [sys.executable, "-c", code], capture_output=True, text=True,
+            check=True,
+        ).stdout
+        # the combining acute stays inside the word (stdlib \w drops it)
+        assert out.strip() == "['cafe\u0301', 'naïve', 'x_y', '42']"
+
+    def test_native_tables_generate_without_regex(self):
+        import os
+        import subprocess
+        import sys
+
+        native = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "native",
+        )
+        code = (
+            "import sys, runpy; sys.modules['regex'] = None; "
+            "runpy.run_path('gen_unicode_tables.py', run_name='__main__')"
+        )
+        out = subprocess.run(
+            [sys.executable, "-c", code], cwd=native, capture_output=True,
+            text=True, check=True,
+        ).stdout
+        assert out.startswith("// generated by gen_unicode_tables.py")
+        assert "u_flag_index" in out and "u_upper_data" in out

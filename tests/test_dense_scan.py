@@ -3,14 +3,10 @@
 import numpy as np
 import pytest
 
-import jax
-
 from iresearch_tpu.formats.bitpack import BITS, pack_blocks
 from iresearch_tpu.formats.spec import BLOCK
-from iresearch_tpu.ops.dense_scan import dense_scan_rowmax, dense_scan_topk
+from iresearch_tpu.ops.dense_scan import dense_scan_rowmax_xla, dense_scan_topk
 from iresearch_tpu.search.scorers import BM25, TFIDF
-
-INTERP = jax.default_backend() == "cpu"
 
 
 def _mk_span(rng, ndrows, bits):
@@ -42,14 +38,13 @@ def test_rowmax_matches_numpy(scorer, span_bits):
     want_max = expect.max(axis=1)
     want_arg = expect.argmax(axis=1)
 
-    got_max, got_arg = dense_scan_rowmax(
+    got_max, got_arg = dense_scan_rowmax_xla(
         tuple(p for _, p in spans),
         tuple(np.float32(w) for w in ws),
         norms,
         np.float32(avgdl),
         scorer=scorer,
         span_bits=span_bits,
-        interpret=INTERP,
     )
     np.testing.assert_allclose(
         np.asarray(got_max), want_max, rtol=1e-5, atol=1e-6
@@ -89,7 +84,6 @@ def test_topk_matches_sorted(k):
         scorer=BM25(),
         span_bits=span_bits,
         k=k,
-        interpret=INTERP,
     )
     vals = np.asarray(vals)
     docs = np.asarray(docs)
@@ -139,7 +133,6 @@ def test_topk_min_match(mm):
         scorer=BM25(),
         span_bits=span_bits,
         k=k,
-        interpret=INTERP,
         mm=mm,
     )
     vals = np.asarray(vals)

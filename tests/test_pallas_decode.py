@@ -1,16 +1,34 @@
-"""Pallas decode kernel vs numpy/XLA paths (interpret mode on CPU)."""
+"""Postings block decode (gather + unpack + delta prefix-sum) vs numpy.
+
+The decode runs as XLA ops inside exec.executor._group_contrib:
+``unpack_jnp`` of the gathered rows, then ``cumsum`` onto the block base.
+"""
 
 import numpy as np
 import pytest
 
-from iresearch_tpu.formats.bitpack import BITS, pack_blocks
-from iresearch_tpu.ops.decode import decode_rows_pallas, pallas_available
+from iresearch_tpu.formats.bitpack import pack_blocks
+
+
+def _decode_rows(doc_words, freq_words, base, rows_d, rows_f, bd, bf):
+    """The executor's decode of gathered rows, as _group_contrib runs it."""
+    import jax
+    import jax.numpy as jnp
+
+    from iresearch_tpu.formats.bitpack import unpack_jnp
+
+    @jax.jit
+    def run(doc_words, freq_words, base, rows_d, rows_f):
+        d = unpack_jnp(doc_words[rows_d], bd).astype(jnp.int32)
+        docs = base[rows_d][:, None] + jnp.cumsum(d, axis=1)
+        f = unpack_jnp(freq_words[rows_f], bf).astype(jnp.float32)
+        return docs, f
+
+    return run(doc_words, freq_words, base, rows_d, rows_f)
 
 
 @pytest.mark.parametrize("bd,bf", [(8, 2), (16, 1), (4, 4), (32, 8), (1, 1)])
 def test_kernel_matches_numpy(rng, bd, bf):
-    if not pallas_available():
-        pytest.skip("pallas unavailable")
     import jax.numpy as jnp
 
     rows = 32
@@ -22,45 +40,10 @@ def test_kernel_matches_numpy(rng, bd, bf):
     R = 16
     rd = rng.integers(0, rows, R).astype(np.int32)
     rf = rng.integers(0, rows, R).astype(np.int32)
-    docs, f = decode_rows_pallas(
+    docs, f = _decode_rows(
         jnp.asarray(dw), jnp.asarray(fw), jnp.asarray(base),
-        jnp.asarray(rd), jnp.asarray(rf), bd=bd, bf=bf, interpret=True,
+        jnp.asarray(rd), jnp.asarray(rf), bd, bf,
     )
     want = base[rd][:, None] + np.cumsum(deltas[rd].astype(np.int64), axis=1)
     np.testing.assert_array_equal(np.asarray(docs), want.astype(np.int32))
     np.testing.assert_array_equal(np.asarray(f), freqs[rf].astype(np.float32))
-
-
-def test_executor_with_pallas_backend(rng):
-    """Full query path with the Pallas decode backend == XLA backend."""
-    if not pallas_available():
-        pytest.skip("pallas unavailable")
-    import jax
-
-    from iresearch_tpu.exec import DeviceQuery
-    from iresearch_tpu.exec import executor as ex
-    from iresearch_tpu.index.reader import DirectoryReader
-    from iresearch_tpu.index.writer import Field, IndexWriter, IndexWriterOptions
-    from iresearch_tpu.search import filters as F
-    from iresearch_tpu.store.directory import MemoryDirectory
-
-    words = ["aa", "bb", "cc", "dd", "ee"]
-    d = MemoryDirectory()
-    with IndexWriter(d, IndexWriterOptions(invert_backend="numpy")) as w:
-        for i in range(150):
-            n = int(rng.integers(2, 12))
-            w.insert([Field("body", " ".join(words[j] for j in rng.integers(0, 5, n)), analyzer="segmentation")])
-        w.commit()
-    r = DirectoryReader.open(d)
-    flt = F.Or(F.ByTerm("body", "aa"), F.ByTerm("body", "cc"))
-    v1, d1 = DeviceQuery(flt, list(r.segments)).execute_segment(0, 10)
-    ex.use_pallas_decode(True)
-    jax.clear_caches()
-    try:
-        v2, d2 = DeviceQuery(flt, list(r.segments)).execute_segment(0, 10)
-    finally:
-        ex.use_pallas_decode(False)
-        jax.clear_caches()
-    np.testing.assert_allclose(v2, v1, rtol=1e-6)
-    fin = np.isfinite(v1)
-    np.testing.assert_array_equal(d2[fin], d1[fin])

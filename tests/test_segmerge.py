@@ -165,8 +165,8 @@ def test_equal_shape_segments_share_fused_executable():
     must stack to IDENTICAL fused programs under prepare_all: the joint
     cross-segment signature grouping + cross-segment max padding makes
     every per-segment PreparedBatch carry the same template key, so one
-    compiled executable serves all segments (relay/HBM program count is
-    O(1) in segments, not O(S))."""
+    compiled executable serves all segments (the compiled program count
+    is O(1) in segments, not O(S))."""
     from iresearch_tpu.exec.batch import QueryBatch
 
     d = MemoryDirectory()

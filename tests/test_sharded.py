@@ -1,7 +1,7 @@
 """Sharded (multi-device) search vs host oracle on the 8-device CPU mesh.
 
 The conftest forces JAX_PLATFORMS=cpu with 8 virtual devices; this is the
-CI stand-in for a v5e pod slice. Exactness gate: sharded top-k must equal
+CI stand-in for a multi-card host. Exactness gate: sharded top-k must equal
 the single-host oracle's top-k (same docs, same order, scores to rtol).
 """
 

@@ -104,3 +104,42 @@ def test_scored_only_kmax_enforced(reader, searcher):
     got = prep.top_k(10)[0]
     want = search_host(reader, flt, BM25(), k=10)
     assert_topk_equiv(got, want)
+
+
+@pytest.mark.parametrize("wand", [False, True], ids=["exact", "wand"])
+def test_sharded_dense_unaligned_segment_grid(wand):
+    """Segments whose padded grid is not a power of two (pad_docs rounds
+    9000 docs to 9216, the sharded doc axis to 16384): the uniform layout
+    zero-pads every term's rows to the sharded axis and stays exact."""
+    import jax
+
+    from iresearch_tpu.formats.spec import pad_docs
+    from iresearch_tpu.parallel import ShardedSearcher, make_mesh
+
+    rng = np.random.default_rng(31)
+    d = MemoryDirectory()
+    with IndexWriter(d, IndexWriterOptions(invert_backend="numpy")) as w:
+        for i in range(18000):
+            toks = ["hot1"] * int(rng.integers(0, 3))
+            if rng.random() < 0.6:
+                toks.append("hot2")
+            toks.append(RARE[int(rng.integers(0, len(RARE)))])
+            w.insert([Field("body", " ".join(toks), analyzer="segmentation")])
+            if i == 8999:
+                w.commit()
+        w.commit()
+    r = DirectoryReader.open(d)
+    segs = list(r.segments)
+    assert [sr.num_docs for sr in segs] == [9000, 9000]
+    assert pad_docs(9000) == 9216
+    s = ShardedSearcher(segs, make_mesh(jax.devices()[:2]))
+    lay = s._dense_layout("body")
+    assert b"hot1" in lay.terms and lay.stride * 128 == s.nd_pad == 16384
+    qs = [
+        F.ByTerm("body", "hot1"),
+        F.Or(F.ByTerm("body", "hot1"), F.ByTerm("body", "hot2")),
+        F.Or(F.ByTerm("body", "hot2"), F.ByTerm("body", "rook")),
+    ]
+    got = s.prepare_many(qs, BM25(), wand=wand).top_k(10)
+    for q, g in zip(qs, got):
+        assert_topk_equiv(g, search_host(r, q, BM25(), k=10))

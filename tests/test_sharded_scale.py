@@ -3,7 +3,7 @@
 8 segments x 131072 docs (1.05M total) on the virtual CPU mesh: the
 dense grid, gridmix and WAND paths run with realistic tier thresholds
 (a toy corpus exercises different plan shapes than 100k+ docs/shard).
-Catches tier/threshold regressions before they cost a TPU bench round
+Catches tier/threshold regressions before they cost a benchmark round on the card
 (VERDICT r2 weak item 8).
 """
 

@@ -4,9 +4,9 @@ Reference analog: WandContext{index, strict}
 (/root/reference/core/index/index_reader_options.hpp:48-56) — strict
 sets the skip threshold to the score as-is (MinStrict,
 formats_10.cpp:2434), weak backs it off one float step (MinWeak). The
-TPU engine's "exact" default goes further (relative-epsilon shave =
+engine's "exact" default goes further (relative-epsilon shave =
 never prunes a true top-k block); "strict" matches the reference's
-aggressive bound; "approx" is the TPU-native speed lever — a single
+aggressive bound; "approx" is the speed lever — a single
 sampled pass decoding only the `wand_sample` highest-bound blocks.
 """
 
